@@ -1,7 +1,7 @@
 """Brute-force host oracles implementing the reference semantics
 directly from their specification (SURVEY.md Appendix A).  These are
 deliberately simple O(n^2)-ish implementations used only to verify the
-TPU implementations on small inputs — the differential-testing strategy
+device implementations on small inputs — the differential-testing strategy
 of the reference (Checkall.sh / Cmponl.sh / bmhcheck) re-hosted.
 """
 

@@ -7,7 +7,9 @@ import sys
 
 import pytest
 
-REF_MK = "/root/repo/.ref-build/src/Mkvtree"
+from conftest import REPO
+
+REF_MK = os.path.join(REPO, ".ref-build/src/Mkvtree")
 TINY = ">t\nacgtacgtnacctgacacgtacgt\n>u\nggacgtacca\n"
 
 needs_ref = pytest.mark.skipif(
@@ -17,8 +19,7 @@ needs_ref = pytest.mark.skipif(
 
 
 def _env():
-    return dict(os.environ, JAX_PLATFORMS="cpu",
-                PYTHONPATH="/root/repo")
+    return dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
 
 
 @pytest.fixture(scope="module")
@@ -26,15 +27,17 @@ def tiny(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("aux")
     fa = tmp / "tiny.fna"
     fa.write_text(TINY)
-    subprocess.run(
-        [os.path.join(REF_MK, "mkvtree.x"), "-db", str(fa), "-dna",
-         "-pl", "1", "-allout", "-indexname", str(tmp / "ref")],
-        check=True, capture_output=True)
-    subprocess.run(
-        [sys.executable, "-m", "vstree_tpu.cli.mkvtree", "-db",
-         str(fa), "-dna", "-pl", "1", "-allout",
-         "-indexname", str(tmp / "ours")],
-        check=True, capture_output=True, env=_env(), cwd=str(tmp))
+    mkvtree_x = os.path.join(REF_MK, "mkvtree.x")
+    # without the reference binary, "ref" is a second build of ours
+    ref = ([mkvtree_x] if os.path.exists(mkvtree_x)
+           else [sys.executable, "-m", "vstree_tpu.cli.mkvtree"])
+    for cmd, name in ((ref, "ref"),
+                      ([sys.executable, "-m", "vstree_tpu.cli.mkvtree"],
+                       "ours")):
+        subprocess.run(
+            cmd + ["-db", str(fa), "-dna", "-pl", "1", "-allout",
+                   "-indexname", str(tmp / name)],
+            check=True, capture_output=True, env=_env(), cwd=str(tmp))
     return tmp
 
 

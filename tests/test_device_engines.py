@@ -1,10 +1,9 @@
 """Device-path engines vs host oracles on the CPU backend.
 
-The TPU routes (engine/repeats_dev.py, engine/mstats.py, the blocked
+The device routes (engine/repeats_dev.py, engine/mstats.py, the blocked
 skip table) are plain JAX programs, so the CPU backend exercises the
-identical code the TPU runs (minus the compiler target)."""
-
-import os
+identical code the GPU runs (minus the compiler target).  Routes are
+pinned with core/route.py ``pinned``."""
 
 import numpy as np
 import pytest
@@ -13,6 +12,7 @@ from conftest import random_dna_text
 
 from vstree_tpu.core.alphabet import dna_alphabet
 from vstree_tpu.core.multiseq import Multiseq
+from vstree_tpu.core.route import pinned
 from vstree_tpu.engine.mstats import matching_statistics
 from vstree_tpu.engine.repeats import maximal_pairs_ref_order_vec
 from vstree_tpu.engine.repeats_dev import maximal_pairs_device
@@ -127,8 +127,6 @@ def test_findmaxpref_device_vs_host(rng):
 def test_query_self_async_pipeline_vs_host(rng):
     """find_query_mems_self_device (the chained-async db-vs-itself
     pipeline) vs the host state machine on identical workloads."""
-    import os
-
     from vstree_tpu.engine.query import find_query_matches
 
     for trial in range(3):
@@ -144,12 +142,10 @@ def test_query_self_async_pipeline_vs_host(rng):
         esa = build_esa(ms, dna_alphabet(),
                         demand=("suf", "lcp", "bwt", "bck", "sti"))
         L = int(rng.integers(max(esa.prefixlength, 5), 12))
-        dev = find_query_matches(esa, ms, L, "mem")
-        os.environ["VSTREE_HOST_QUERY"] = "1"
-        try:
+        with pinned(True):
+            dev = find_query_matches(esa, ms, L, "mem")
+        with pinned(False):
             host = find_query_matches(esa, ms, L, "mem")
-        finally:
-            del os.environ["VSTREE_HOST_QUERY"]
         assert len(dev.position1) == len(host.position1), trial
         for f in ("position1", "length1", "position2", "seqnum1",
                   "relpos1", "seqnum2", "relpos2"):
@@ -162,8 +158,6 @@ def test_edit_extension_device_vs_host(rng):
     """Device fronts + viability prefilter (gextend_dev
     edit_fronts_viable, including the fused no-sync slides) vs the
     host edit_fronts path: full extension output equality."""
-    import os
-
     from vstree_tpu.engine.gextend import Seqs, edit_extend_seeds
     from vstree_tpu.engine.repeats import find_maximal_pairs_ref
     from vstree_tpu.stats.evalues import Evalues
@@ -181,18 +175,15 @@ def test_edit_extension_device_vs_host(rng):
             continue
         ev = Evalues(0.25)
 
-        def run(flag):
-            os.environ["VSTREE_DEVICE_ENGINES"] = flag
-            try:
+        def run(device):
+            with pinned(device):
                 sq = Seqs(text, text)
                 return edit_extend_seeds(sq, ev, seeds, 2, 30, 10,
                                          querycompare=False,
                                          selfmode=True)
-            finally:
-                del os.environ["VSTREE_DEVICE_ENGINES"]
 
-        dev = run("1")
-        host = run("0")
+        dev = run(True)
+        host = run(False)
         assert len(dev.position1) == len(host.position1), trial
         for f in ("position1", "length1", "position2", "length2",
                   "distance"):
@@ -224,43 +215,10 @@ def test_skip_table_adversarial():
         np.testing.assert_array_equal(got, want)
 
 
-def test_pallas_myers_verify_matches_jnp(rng):
-    """native/myers.py kernel (interpret mode) vs the jnp multiword
-    Myers path on 32-bit patterns."""
-    import jax.numpy as jnp
-
-    from vstree_tpu.engine.approx import _eqs_matrix, _verify_edit_jnp
-    from vstree_tpu.native.myers import verify_edit_pallas
-
-    for trial in range(3):
-        n = 4000
-        text = random_dna_text(rng, n, n_wild=5, n_sep=4)
-        pats = [rng.integers(0, 4, int(rng.integers(6, 32))
-                             ).astype(np.uint8) for _ in range(7)]
-        plens = np.array([p.size for p in pats], np.int32)
-        maxlen = int(plens.max()) + 3
-        eqs = _eqs_matrix(pats, int(plens.max()))
-        P = 900
-        cand = rng.integers(0, n - 1, P).astype(np.int32)
-        qidx = rng.integers(0, len(pats), P).astype(np.int32)
-        a = _verify_edit_jnp(
-            jnp.asarray(text), jnp.asarray(cand), jnp.asarray(qidx),
-            jnp.asarray(eqs), jnp.asarray(plens), 1, maxlen, n)
-        b = verify_edit_pallas(
-            jnp.asarray(text), jnp.asarray(cand), jnp.asarray(qidx),
-            jnp.asarray(eqs[:, 0, :]), jnp.asarray(plens), maxlen, n,
-            interpret=True)
-        for x, y, name in zip(a, b, ("minsc", "bestlen", "bestsc")):
-            np.testing.assert_array_equal(
-                np.asarray(x), np.asarray(y), err_msg=f"{trial}:{name}")
-
-
 def test_edit_extend_self_device_vs_host(rng):
     """Fused seeds->extension (edit_extend_self_device: unordered
     device pair enumeration + survivor-only emission sort) vs the
     two-step host path: full output equality including order."""
-    import os
-
     from vstree_tpu.engine.gextend import (
         Seqs,
         edit_extend_seeds,
@@ -278,15 +236,13 @@ def test_edit_extend_self_device_vs_host(rng):
                         demand=("suf", "lcp", "bwt", "bck", "sti"))
         ev = Evalues(0.25)
         sq = Seqs(text, text)
-        os.environ["VSTREE_DEVICE_ENGINES"] = "1"
-        try:
+        with pinned(True):
             dev = edit_extend_self_device(esa, sq, ev, 2, 30, 10)
-        finally:
-            del os.environ["VSTREE_DEVICE_ENGINES"]
-        seeds = find_maximal_pairs_ref(esa, 10)
-        host = edit_extend_seeds(Seqs(text, text), ev, seeds, 2, 30,
-                                 10, querycompare=False,
-                                 selfmode=True)
+        with pinned(False):
+            seeds = find_maximal_pairs_ref(esa, 10)
+            host = edit_extend_seeds(Seqs(text, text), ev, seeds, 2, 30,
+                                     10, querycompare=False,
+                                     selfmode=True)
         if dev is None:
             continue
         assert len(dev.position1) == len(host.position1), trial

@@ -33,7 +33,13 @@ def build_ours(tmp_path, fasta, name):
 
 
 def test_roundtrip(tmp_path):
-    fasta = os.path.join(TESTDATA, "Grumbach/Wildcards.fna")
+    """Seeded sequences dense in wildcards (n) through write/read."""
+    from conftest import repeat_rich_text, write_fasta
+
+    rng = np.random.default_rng(3)
+    fasta = write_fasta(tmp_path / "w.fna", [
+        repeat_rich_text(rng, m, families=2, n_wild=m // 20)
+        for m in (3000, 1200, 4500)])
     esa = build_ours(tmp_path, fasta, "w")
     esa2 = read_index(str(tmp_path / "w"))
     assert np.array_equal(esa2.suftab, esa.suftab)

@@ -48,10 +48,11 @@ def test_merge_matches_monolithic(seed):
 
 
 def test_merge_real_data_split():
-    alpha = dna_alphabet()
-    ms = read_multiseq(
-        ["/root/reference/src/testdata/Grumbach/humghcsa.fna"], alpha)
-    t = ms.sequence[:30000]
+    """Three-way split of a seeded repeat-rich 30 kbp text."""
+    from conftest import repeat_rich_text
+
+    t = repeat_rich_text(np.random.default_rng(8), 30000, families=8,
+                         n_wild=4)
     cuts = [0, 9000, 17000, 30000]
     texts = [t[cuts[i]:cuts[i + 1]] for i in range(3)]
     suf_o, _ = _oracle(texts)

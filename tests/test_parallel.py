@@ -14,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tests.conftest import random_dna_text
+from conftest import REPO, random_dna_text, repeat_rich_text, write_fasta
 from vstree_tpu.index.build import build_esa, lcp_table, suffix_sort
 from vstree_tpu.parallel.mesh import make_mesh, sharded_exact_match
 from vstree_tpu.parallel.shardesa import (
@@ -24,8 +24,7 @@ from vstree_tpu.parallel.shardesa import (
     supermax_intervals_sharded,
 )
 
-TESTDATA = "/root/reference/src/testdata"
-REF_VMATCH = "/root/repo/.ref-build/src/Vmatch/vmatch.x"
+REF_VMATCH = os.path.join(REPO, ".ref-build/src/Vmatch/vmatch.x")
 
 
 def _mk_esa(text):
@@ -105,13 +104,10 @@ def test_sharded_suffix_sort_and_lcp(rng, ndev):
 
 @pytest.fixture(scope="module")
 def at1mb_esa():
-    from vstree_tpu.core.alphabet import dna_alphabet
-    from vstree_tpu.core.multiseq import read_multiseq
-
-    path = os.path.join(TESTDATA, "at1MB")
-    ms = read_multiseq([path], dna_alphabet())
-    return build_esa(ms, dna_alphabet(),
-                     demand=("suf", "lcp", "bwt", "bck", "sti"))
+    """ESA of a seeded 1 Mbp repeat-rich corpus."""
+    text = repeat_rich_text(np.random.default_rng(1), 1_000_000,
+                            families=40, n_wild=50)
+    return _mk_esa(text)
 
 
 @pytest.mark.parametrize("ndev", [2, 4, 8])
@@ -200,10 +196,12 @@ needs_ref = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def at1mb_cli(tmp_path_factory):
-    """Our index over at1MB on disk + a query file, built once."""
+    """Our index over a seeded 1 Mbp corpus on disk + a query file,
+    built once."""
     tmp = tmp_path_factory.mktemp("numproc")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
-    src = os.path.join(TESTDATA, "at1MB")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    src = write_fasta(tmp / "at1MB.fna", [repeat_rich_text(
+        np.random.default_rng(1), 1_000_000, families=40)])
     subprocess.run(
         [sys.executable, "-m", "vstree_tpu.cli.mkvtree", "-db", src,
          "-dna", "-pl", "-allout", "-indexname", str(tmp / "at1MB")],
@@ -224,7 +222,7 @@ def at1mb_cli(tmp_path_factory):
 
 def _run_cli(args, cwd, ndev=8):
     env = dict(
-        os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo",
+        os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
         XLA_FLAGS=f"--xla_force_host_platform_device_count={ndev}",
     )
     r = subprocess.run(
@@ -279,9 +277,10 @@ def test_numproc_mkvtree_index_byte_identical(tmp_path):
     """Sharded build (-numproc) writes byte-identical index files."""
     if len(jax.devices()) < 2:
         pytest.skip("not enough devices")
-    src = os.path.join(TESTDATA, "at100K1")
+    src = write_fasta(tmp_path / "c.fna", np.array_split(repeat_rich_text(
+        np.random.default_rng(2), 100_000, n_wild=10), 3))
     env = dict(
-        os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo",
+        os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
         XLA_FLAGS="--xla_force_host_platform_device_count=8",
     )
     for name, extra in (("mono", []), ("shard", ["-numproc", "2"])):
@@ -296,3 +295,18 @@ def test_numproc_mkvtree_index_byte_identical(tmp_path):
         a = (tmp_path / f"mono.{suffix}").read_bytes()
         b = (tmp_path / f"shard.{suffix}").read_bytes()
         assert a == b, suffix
+
+
+def test_multichip_dryrun_at_scale():
+    """Shard-vs-monolith equality with a sort size well past the
+    trivial regime: 256 kbp over a virtual 8-device CPU mesh (4x the
+    default dryrun size)."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    code = ("import __graft_entry__ as g; "
+            "g.dryrun_multichip(8, perdev=32768); print('DRYRUN-OK')")
+    r = subprocess.run([sys.executable, "-c", code],
+                       capture_output=True, text=True, env=env,
+                       timeout=900, cwd=REPO)
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+    assert "DRYRUN-OK" in r.stdout

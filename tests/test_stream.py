@@ -9,17 +9,21 @@ import sys
 import numpy as np
 import pytest
 
-ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
-TESTDATA = "/root/reference/src/testdata"
+from conftest import REPO, repeat_rich_text, write_fasta
+
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
 
 
 @pytest.fixture(scope="module")
 def idx(tmp_path_factory):
+    """Index of a seeded 100 kbp repeat-rich corpus in 4 sequences."""
     tmp = tmp_path_factory.mktemp("stream")
+    rng = np.random.default_rng(100)
+    text = repeat_rich_text(rng, 100_000, families=12, n_wild=20)
+    fa = write_fasta(tmp / "c.fna", np.array_split(text, 4))
     subprocess.run(
-        [sys.executable, "-m", "vstree_tpu.cli.mkvtree", "-db",
-         os.path.join(TESTDATA, "at100K1"), "-dna", "-pl", "-allout",
-         "-indexname", str(tmp / "idx")],
+        [sys.executable, "-m", "vstree_tpu.cli.mkvtree", "-db", fa,
+         "-dna", "-pl", "-allout", "-indexname", str(tmp / "idx")],
         check=True, capture_output=True, env=ENV, cwd=str(tmp))
     return str(tmp / "idx")
 
@@ -66,21 +70,20 @@ def test_stream_memory_is_bounded(idx):
                 assert arr is None or arr.size <= 1024
 
 
-def test_out_of_core_build_matches_monolithic():
-    """HBM-bounded shard build + mergeesa-analog merge == monolithic
-    index (the 'index larger than device memory' capability at
-    reduced scale)."""
-    import numpy as np
-
+def test_out_of_core_build_matches_monolithic(tmp_path):
+    """Device-memory-bounded shard build + mergeesa-analog merge ==
+    monolithic index (the 'index larger than device memory' capability
+    at reduced scale), on three seeded sequences in three files."""
     from vstree_tpu.core.alphabet import dna_alphabet
     from vstree_tpu.core.multiseq import read_multiseq
     from vstree_tpu.index.build import build_esa, build_suf_out_of_core
 
     alpha = dna_alphabet()
-    ms = read_multiseq(
-        ["/root/reference/src/testdata/Grumbach/vaccg.fna",
-         "/root/reference/src/testdata/Grumbach/humghcsa.fna",
-         "/root/reference/src/testdata/Grumbach/humhbb.fna"], alpha)
+    rng = np.random.default_rng(7)
+    files = [write_fasta(tmp_path / f"f{i}.fna",
+                         [repeat_rich_text(rng, m, n_wild=3)])
+             for i, m in enumerate((190_000, 66_000, 73_000))]
+    ms = read_multiseq(files, alpha)
     mono = build_esa(ms, alpha, demand=("suf", "lcp"))
     suf, lcp = build_suf_out_of_core(ms, alpha, max_shard_bp=80_000)
     np.testing.assert_array_equal(mono.suftab, suf)

@@ -6,20 +6,23 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
-REF_SRC = "/root/repo/.ref-build/src"
+from conftest import REPO, repeat_rich_text, write_fasta
+
+REF_SRC = os.path.join(REPO, ".ref-build/src")
 MKVTREE = os.path.join(REF_SRC, "Mkvtree/mkvtree.x")
 VMATCH = os.path.join(REF_SRC, "Vmatch/vmatch.x")
 CHAIN2DIM = os.path.join(REF_SRC, "Vmatch/chain2dim.x")
 MKRCIDX = os.path.join(REF_SRC, "Mkvtree/mkrcidx.x")
-TESTDATA = "/root/reference/src/testdata"
 
 needs_ref = pytest.mark.skipif(
     not os.path.exists(VMATCH), reason="reference binaries not built"
 )
 
-ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+DEMO_PLUGIN = os.path.join(REPO, "vstree_tpu/plugins/vmotif-demo.py")
 
 
 def run_ours(args, cwd):
@@ -35,11 +38,15 @@ def body(s):
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
+    """Index of a seeded 100 kbp corpus (and the reference binary's
+    index of it, when the binaries are built)."""
     tmp = tmp_path_factory.mktemp("thread")
-    src = os.path.join(TESTDATA, "at100K1")
-    subprocess.run([MKVTREE, "-db", src, "-dna", "-pl", "-allout",
-                    "-indexname", str(tmp / "ref")],
-                   check=True, capture_output=True)
+    src = write_fasta(tmp / "c.fna", np.array_split(repeat_rich_text(
+        np.random.default_rng(4), 100_000, families=12), 2))
+    if os.path.exists(MKVTREE):
+        subprocess.run([MKVTREE, "-db", src, "-dna", "-pl", "-allout",
+                        "-indexname", str(tmp / "ref")],
+                       check=True, capture_output=True)
     subprocess.run(
         [sys.executable, "-m", "vstree_tpu.cli.mkvtree", "-db", src,
          "-dna", "-pl", "-allout", "-indexname", str(tmp / "ours")],
@@ -115,7 +122,7 @@ def test_gated_options_rejected(setup):
 
 @needs_ref
 def test_mkrcidx_cpl(setup, tmp_path):
-    src = os.path.join(TESTDATA, "at100K1")
+    src = str(setup / "c.fna")
     subprocess.run([MKRCIDX, "-db", src, "-cpl", "-indexname",
                     str(tmp_path / "ref")],
                    check=True, capture_output=True, cwd=str(tmp_path))
@@ -135,11 +142,11 @@ def test_vplugin_vmotif_demo(setup):
     # -selfun with an unloadable path must fail cleanly even when a
     # vplugin takes over the search
     r_bad = run_ours(
-        ["-complete", "/root/repo/vstree_tpu/plugins/vmotif-demo.py",
+        ["-complete", DEMO_PLUGIN,
          "-selfun", "/dev/null", str(setup / "ours")], str(setup))
     assert r_bad.returncode != 0
     r = run_ours(
-        ["-complete", "/root/repo/vstree_tpu/plugins/vmotif-demo.py",
+        ["-complete", DEMO_PLUGIN,
          str(setup / "ours")], str(setup))
     assert r.returncode == 0, r.stderr
     rows = [l for l in r.stdout.splitlines() if not l.startswith("#")]

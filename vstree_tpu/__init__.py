@@ -1,6 +1,6 @@
-"""vstree_tpu — a TPU-native sequence-analysis framework.
+"""vstree_tpu — an accelerator sequence-analysis framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 vstree toolkit (mkvtree enhanced-suffix-array construction + vmatch
 large-scale matching): persistent enhanced suffix arrays, exact and
 approximate match enumeration (repeats, MUMs/MEMs, tandems, complete

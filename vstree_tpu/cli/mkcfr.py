@@ -7,7 +7,7 @@ rank (gethome = the boundary with the deeper neighboring lcp); .crf
 is the symmetric table on the reverse index.  These feed the affix
 (bidirectional) search structure.
 
-TPU-native formulation: interval prefixes are special-free (they are
+Batched formulation: interval prefixes are special-free (they are
 common prefixes of >= 2 suffixes, and specials never match), so ALL
 interval patterns batch through the exact interval lookup
 (engine/complete.py) against the other direction's ESA — one batched

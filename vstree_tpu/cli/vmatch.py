@@ -976,7 +976,7 @@ def run(argv: list[str], out=None) -> int:
                 sq = Seqs(ms.sequence, ms.sequence)
                 mt = None
                 if k_e is not None and not has_iq:
-                    # fused device path: seeds never leave HBM
+                    # fused device path: seeds never leave the device
                     from ..engine.gextend import (
                         edit_extend_self_device,
                     )
@@ -1333,26 +1333,13 @@ def main() -> None:
                 jax.profiler.stop_trace()
         return run(argv, out=out) if out is not None else run(argv)
 
-    def run_retrying(argv, out=None):
-        # transient-device-fault resilience (SURVEY §5 row 3): one
-        # retry when the accelerator reports UNAVAILABLE (the round-3
-        # scored bench lost two metrics to exactly this fault class)
-        try:
-            return run_once(argv, out=out)
-        except Exception as e:
-            if "UNAVAILABLE" in repr(e) and type(e).__module__.startswith("jax"):
-                print("vmatch: transient device fault, retrying once",
-                      file=sys.stderr)
-                return run_once(argv, out=out)
-            raise
-
     try:
         if showtimespace:
             # timing mode (vmatch.mn.c:44-52,91-96): matches are
             # swallowed, # TIME / # SPACE lines printed at exit
             t0 = time.process_time()
             sink = io.StringIO()
-            rc = run_retrying(sys.argv[1:], out=sink)
+            rc = run_once(sys.argv[1:], out=sink)
             import resource
 
             peak = resource.getrusage(
@@ -1360,7 +1347,7 @@ def main() -> None:
             print(f"# TIME vmatch {time.process_time() - t0:.2f}")
             print(f"# SPACE vmatch {peak:.2f}")
             sys.exit(rc)
-        sys.exit(run_retrying(sys.argv[1:]))
+        sys.exit(run_once(sys.argv[1:]))
     except BrokenPipeError:  # e.g. piped into head
         sys.exit(0)
 

@@ -37,36 +37,24 @@ def scan_paths_for_file(envvar: str, filename: str) -> str:
         f'cannot find file "{filename}" (also searched ${envvar})')
 
 
-def configure_compile_cache() -> None:
-    """Point JAX at the persistent XLA compile cache so CLI runs
-    reuse compilations across processes (pairs with
-    ``python -m vstree_tpu.prewarm``; VSTREE_COMPILE_CACHE overrides
-    the default ``~/.cache/vstree_tpu/xla``, "off" disables)."""
-    cache = os.environ.get(
-        "VSTREE_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/vstree_tpu/xla"))
-    if cache == "off":
-        return
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compile cache at
+    ``JAX_COMPILATION_CACHE_DIR`` as given when it is set, otherwise at
+    ``.jax_cache/<backend>`` inside the checkout (a fixed path, so every
+    run of the same checkout finds what earlier runs compiled); returns
+    the directory."""
     # cache loads can emit C++-side glog chatter (e.g. the AOT
     # cpu-feature advisory) on stderr, which must stay byte-clean for
     # the reference-parity contract of the CLIs
     os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-    try:
-        import hashlib
+    import jax
 
-        import jax
-
-        # segregate entries per (platform, XLA_FLAGS): AOT artifacts
-        # compiled under one backend configuration trip cpu-feature
-        # advisories (stderr noise) when loaded under another
-        tag = "%s-%s" % (
-            jax.default_backend(),
-            hashlib.sha1(os.environ.get("XLA_FLAGS", "")
-                         .encode()).hexdigest()[:8])
-        cache = os.path.join(cache, tag)
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        cache = os.path.join(root, ".jax_cache", jax.default_backend())
+    os.makedirs(cache, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return cache

@@ -1,6 +1,6 @@
 """Multiple-sequence model and input parsing.
 
-TPU-native re-implementation of the reference ``Multiseq`` concept
+Array re-implementation of the reference ``Multiseq`` concept
 (reference: src/include/multidef.h:113-133, src/kurtz-basic/multiseq-adv.c,
 readmulti.c, parsemultiform.c):
 
@@ -17,7 +17,7 @@ readmulti.c, parsemultiform.c):
   query partition bookkeeping matches multidef.h:75-92.
 
 Parsing is NumPy-vectorized on the host; the encoded array is the
-payload later moved to TPU HBM.
+payload later moved to device memory.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ Reference algorithms (all emit start positions in suffix-rank order):
   per emitted start, (length, distance) from the longest-match scan
   (src/Vmengine/longestmatch.c, approxcompl.c:13-65).
 
-TPU-native design — the partition filter IS the batch-friendly
+Batched design — the partition filter IS the batch-friendly
 formulation, so it is used for every k (result set identical to the
 scanning algorithms), batched over ALL query patterns at once:
 
@@ -21,7 +21,7 @@ scanning algorithms), batched over ALL query patterns at once:
    dedupe,
 4. verify all candidates in parallel: vectorized mismatch count
    (Hamming) or multiword Myers bit-vector DP over gathered text
-   windows (edit) — uint32 lanes on the VPU,
+   windows (edit) — one uint32 lane per candidate,
 5. emit survivors in (query, suffix-rank-of-start) order to mirror
    the reference's per-query rank-order scan.
 
@@ -42,6 +42,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..core.chardef import SEPARATOR, WILDCARD
+from ..core.route import note
 from ..index.esa import ESA
 from .complete import exact_interval_lookup
 from .match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
@@ -150,26 +151,6 @@ def _verify_hamming(text, cand, qidx, patmat, plens, maxplen: int, n: int):
 @functools.partial(jax.jit, static_argnames=("w", "maxlen", "n"))
 def _verify_edit(text, cand, qidx, eqs, plens, w: int, maxlen: int,
                  n: int):
-    """Myers bit-vector verification dispatcher: 32-bit patterns run
-    the Pallas kernel (native/myers.py) on TPU (or in interpret mode
-    when VSTREE_PALLAS_VERIFY=interpret, for the CPU differential
-    tests); multiword patterns use the jnp carry-chain path below."""
-    import os
-
-    mode = os.environ.get("VSTREE_PALLAS_VERIFY")
-    use = (mode not in (None, "", "0")
-           or (mode is None and jax.default_backend() == "tpu"))
-    if w == 1 and use and cand.shape[0] > 0:
-        from ..native.myers import verify_edit_pallas
-
-        return verify_edit_pallas(
-            text, cand, qidx, eqs[:, 0, :], jnp.asarray(plens),
-            maxlen, n, interpret=(mode == "interpret"))
-    return _verify_edit_jnp(text, cand, qidx, eqs, plens, w, maxlen, n)
-
-
-def _verify_edit_jnp(text, cand, qidx, eqs, plens, w: int,
-                     maxlen: int, n: int):
     """Per candidate: (minscore over lengths, bestlen, bestscore).
 
     eqs: uint32[Q, w, 256] per-query pattern masks.  Tracks the
@@ -356,6 +337,65 @@ def _hamming_starts(esa: ESA, patterns: list[np.ndarray], k: int):
     return qidx[okv], pos[okv], mm[okv].astype(np.int64)
 
 
+# Cells of one region-verification scan: lanes x (scan steps + the
+# pattern column each lane carries).
+_REGION_CELLS = 1 << 24
+
+
+def _verify_regions(text: np.ndarray, patterns: list[np.ndarray],
+                    plens: np.ndarray, merged: dict, k: int):
+    """Reversed Ukkonen-cutoff verification of merged regions
+    (splitesaapm.c:43-122 ``verifyedistlongmatch``): one lane per
+    (query, region) scans its own window from the region's right end
+    down to its left end, each from a fresh column.  Lanes are grouped
+    by region length rounded up to a power of two, so one long merged
+    region (a tandem repeat) pads no other lane to its length, and each
+    group runs in chunks of at most ``_REGION_CELLS`` cells, a
+    power-of-two lane count each (few distinct programs).  Windows and
+    spare lanes are padded with SEPARATOR, which emits nothing.
+    Returns (qidx, pos): per query, regions ascending, starts inside a
+    region descending (the reference scan direction)."""
+    from .online import _ukkonen_cutoff_scan
+
+    lanes = [(qi, a, b) for qi in range(len(patterns))
+             for a, b in merged.get(qi, ())]
+    lane_q, lane_a, lane_b = (np.array(v, np.int64) for v in zip(*lanes))
+    M = int(plens.max())
+    patrev = np.full((len(patterns), M + 2), -7, np.int32)
+    for qi, p in enumerate(patterns):
+        patrev[qi, 1 : p.size + 1] = p[::-1]
+    span = lane_b - lane_a + 1
+    cls = np.ceil(np.log2(span)).astype(np.int64)
+    cls += (1 << cls) < span
+    hit_lane: list[np.ndarray] = []
+    hit_pos: list[np.ndarray] = []
+    for c in np.unique(cls):
+        steps = 1 << int(c)
+        group = np.flatnonzero(cls == c)
+        per = max(1, _REGION_CELLS // (steps + M + 2))
+        per = 1 << (per.bit_length() - 1)
+        for g in np.split(group, np.arange(per, group.size, per)):
+            R = 1 << (g.size - 1).bit_length()
+            pos = lane_b[g][None, :] - np.arange(steps)[:, None]
+            window = np.full((steps, R), SEPARATOR, np.uint8)
+            window[:, :g.size] = np.where(
+                pos >= lane_a[g][None, :], text[np.maximum(pos, 0)],
+                SEPARATOR)
+            q = np.zeros(R, np.int64)
+            q[:g.size] = lane_q[g]
+            emits = np.asarray(_ukkonen_cutoff_scan(
+                jnp.asarray(window), jnp.asarray(patrev[q]),
+                jnp.asarray(plens[q]), M, k))[:, :g.size]
+            r, s = np.nonzero(emits.T)
+            hit_lane.append(g[r])
+            hit_pos.append(lane_b[g][r] - s)
+    lane = np.concatenate(hit_lane)
+    pos = np.concatenate(hit_pos)
+    # lane order (query, region ascending), positions descending
+    order = np.lexsort((-pos, lane))
+    return lane_q[lane[order]], pos[order]
+
+
 def _region_detect(
     esa: ESA, patterns: list[np.ndarray], k: int, doedist: bool
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -368,8 +408,6 @@ def _region_detect(
     redblacktreewalkwithstop), and inside a region start positions
     DESCENDING (the verify functions scan each region from its end,
     splitesaapm.c:42-240).  Returns (qidx, pos)."""
-    from .online import _ukkonen_cutoff_scan
-
     n = esa.totallength
     B = len(patterns)
     plens = np.array([p.size for p in patterns], np.int32)
@@ -438,44 +476,11 @@ def _region_detect(
     qidx_parts: list[np.ndarray] = []
     pos_parts: list[np.ndarray] = []
     if doedist:
-        # 3a. per-region reversed cutoff verification batched over the
-        # queries that own regions, in column chunks bounding the
-        # dense (n, Bc) reset/inregion matrices to ~64 MB (formerly
-        # (n, B) — 1 GB at 1 Mbp x 1000 queries)
-        qs_with = [qi for qi in range(B) if merged.get(qi)]
-        M = int(plens.max())
-        text_rev = jnp.asarray(esa.multiseq.sequence[::-1].copy())
-        Bc = max(1, (1 << 26) // max(n, 1))
-        for g0 in range(0, len(qs_with), Bc):
-            grp = qs_with[g0:g0 + Bc]
-            Bg = len(grp)
-            resets = np.zeros((n, Bg), bool)  # reversed-text order
-            inreg = np.zeros((n, Bg), bool)
-            patrev = np.full((Bg, M + 2), -7, np.int32)
-            plg = np.zeros(Bg, np.int32)
-            for gi, qi in enumerate(grp):
-                for a, b in merged[qi]:
-                    resets[n - 1 - b, gi] = True
-                    inreg[n - 1 - b : n - a, gi] = True
-                p = patterns[qi]
-                patrev[gi, 1 : plens[qi] + 1] = p[::-1].astype(np.int32)
-                plg[gi] = plens[qi]
-            emits = np.asarray(_ukkonen_cutoff_scan(
-                text_rev,
-                jnp.asarray(patrev), jnp.asarray(plg), M, k,
-                resets=jnp.asarray(resets),
-                inregion=jnp.asarray(inreg)))
-            for gi, qi in enumerate(grp):
-                col = emits[:, gi]
-                for a, b in merged.get(qi, ()):
-                    # reversed rows n-1-b .. n-1-a ascending =
-                    # positions b .. a descending (the reference scan
-                    # direction)
-                    rows = np.flatnonzero(col[n - 1 - b : n - a])
-                    if rows.size:
-                        qidx_parts.append(
-                            np.full(rows.size, qi, np.int64))
-                        pos_parts.append(b - rows.astype(np.int64))
+        # 3a. per-region reversed cutoff verification
+        q, p = _verify_regions(esa.multiseq.sequence, patterns, plens,
+                               merged, k)
+        qidx_parts.append(q)
+        pos_parts.append(p)
     else:
         # 3b. hamming region verification: all window starts inside
         # each region, verified in one batch, emitted descending
@@ -531,6 +536,7 @@ def approx_complete_matches(
     n = esa.totallength
     if B == 0 or n == 0:
         return MatchTable()
+    note("approximate matching", "device")
     if query_seqnums is None:
         query_seqnums = np.arange(B, dtype=np.int64)
     if query_starts is None:

@@ -4,7 +4,7 @@ Exact variant of the reference's ``-complete`` task
 (reference src/Vmengine/exactcompl.c:64-230 ``findsufboundaries`` /
 ``computeofflineexactmatches``; dispatch fcomplete.c:263).
 
-TPU-native design: instead of the reference's per-pattern pointer
+Batched design: instead of the reference's per-pattern pointer
 descent, ALL query patterns are located simultaneously by a batched
 binary search over the suffix array — each step gathers one text
 window per query and refines a (lo, hi) bracket; ~log2(n) synchronized
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..core.chardef import WILDCARD
+from ..core.route import note
 from ..index.esa import ESA
 from .match import FLAGCOMPLETEMATCH, FLAGQUERY, MatchTable
 
@@ -234,37 +235,21 @@ MAX_KEY_LEVELS = 6
 _WILDMARK = 120
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("ppl", "cpw", "sigma", "rowspan", "shift",
-                     "use_pallas"),
-)
-def _device_rank_lookup(
-    flat8: jax.Array,    # int8[B * (ppl + 2*cpw + 1)]: patterns ++ plens
-    bck: jax.Array,      # int32[BR, 128] packed (left | width << shift)
-    t1: jax.Array,       # int32[ROWS, 128]
-    t2: jax.Array,       # int32[ROWS, 128]
-    ppl: int,
-    cpw: int,
-    sigma: int,
-    rowspan: int,
-    shift: int,
-    use_pallas: bool,
-):
-    """Whole exact-match interval lookup on device: bucket code,
-    base-(sigma+1) query-key packing and the rank-lookup kernel — one
-    upload, one dispatch, no host work per batch.  ``flat8`` is laid
-    out char-major (W+1 rows of B) so each per-char extraction is a
-    contiguous row (no relayout)."""
-    from ..native.rankcount import (
-        bucket_rank_lookup,
-        bucket_rank_lookup_xla,
-    )
-
-    W = ppl + 2 * cpw
-    p = flat8.reshape(W + 1, -1).astype(jnp.int32)
+@functools.partial(jax.jit, static_argnames=("ppl", "cpw", "sigma", "W"))
+def _device_rank_lookup(flat8, bck, t1, t2, ppl: int, cpw: int,
+                        sigma: int, W: int):
+    """Whole exact-match interval lookup on device — one upload, one
+    dispatch, no host work per batch: bucket code of the first ``ppl``
+    chars, LOW (pad digit 0) / HIGH (pad digit sigma) base-(sigma+1)
+    two-word keys of the chars after it, the bucket bracket gather, and
+    one contiguous window of ``W >= width`` ranks per query, compared
+    and counted in one fused pass.  ``flat8`` is laid out char-major
+    (ppl + 2*cpw + 1 rows of B, the last row the pattern lengths) so
+    each per-char extraction is a contiguous row."""
+    cov = ppl + 2 * cpw
+    p = flat8.reshape(cov + 1, -1).astype(jnp.int32)
     B = p.shape[1]
-    plen = p[W]
+    plen = p[cov]
     base = sigma + 1
     numofcodes = sigma ** ppl
 
@@ -294,20 +279,33 @@ def _device_rank_lookup(
             q2h = q2h * base + dh
 
     # invalid queries (wildcards / padding rows) hit the zero-width
-    # sentinel bucket appended at code == numofcodes.  The bucket
-    # bracket is fetched here with one XLA gather — keeping it out of
-    # the kernel's scalar loop is worth >4x kernel throughput.
+    # sentinel bucket appended at code == numofcodes
     code = jnp.where(valid, code, numofcodes)
-    v = bck.reshape(-1)[code]
-    left = v & ((1 << shift) - 1)
-    width = jax.lax.shift_right_logical(v, shift)
-    fn = bucket_rank_lookup if use_pallas else bucket_rank_lookup_xla
-    return fn(left, width, q1l, q2l, q1h, q2h, t1, t2, rowspan)
+    left = bck[0, code]
+    width = bck[1, code]
+    k = jnp.arange(W, dtype=jnp.int32)[None, :]
+    j = jnp.minimum(left[:, None] + k, t1.size - 1)
+    w1 = t1[j]
+    w2 = t2[j]
+    inwin = k < width[:, None]
+    wless = ((w1 < q1l[:, None])
+             | ((w1 == q1l[:, None]) & (w2 < q2l[:, None])))
+    wleq = ((w1 < q1h[:, None])
+            | ((w1 == q1h[:, None]) & (w2 <= q2h[:, None])))
+    lo = left + jnp.sum(inwin & wless, axis=1, dtype=jnp.int32)
+    hi = left + jnp.sum(inwin & wleq, axis=1, dtype=jnp.int32)
+    return lo, hi
 
 
-# VMEM budget for the packed bucket table (it must stay on-chip
-# alongside the two key tables)
-_BCK_VMEM_BUDGET = 4 << 20
+# Byte budget of the deep bucket table (left and width per code):
+# deeper buckets shrink every query's window.
+_BCK_TABLE_BUDGET = 64 << 20
+
+# Widest bucket the window count accepts; an index with a wider
+# bucket (low-complexity repeats) takes the binary-search path.
+_MAX_WINDOW = 1024
+
+_BATCH_QUANTUM = 1024
 
 
 class RankLookupPlan:
@@ -322,10 +320,9 @@ class RankLookupPlan:
         self.sigma = sigma
         self.cpw = esa.chars_per_word()
         n = esa.totallength
-        deep = int(math.log(_BCK_VMEM_BUDGET / 4) / math.log(sigma))
+        deep = int(math.log(_BCK_TABLE_BUDGET / 8) / math.log(sigma))
         self.ppl = max(1, min(deep, int(min_plen)))
         self.coverage = self.ppl + 2 * self.cpw
-        self.shift = max(1, int(np.ceil(np.log2(max(n + 2, 4)))))
         self.ok = (
             max_plen <= self.coverage
             and sigma < _WILDMARK
@@ -334,33 +331,26 @@ class RankLookupPlan:
         if not self.ok:
             return
         maxw = esa.aux_bck_maxwidth(self.ppl)
-        self.rowspan = max(1, (maxw + 254) // 128)
-        if (self.rowspan > 8
-                or self.shift + max(1, maxw).bit_length() > 31):
+        if maxw > _MAX_WINDOW:
             self.ok = False
             return
-        self.bck = self._packed_bck()
+        # power-of-two window: indexes of similar size share a program
+        self.W = 1 << max(0, (max(maxw, 1) - 1).bit_length())
+        self.bck = self._bucket_table()
         self.t1, self.t2 = esa.rank_words(self.ppl)
-        self.use_pallas = jax.default_backend() == "tpu"
 
-    def _packed_bck(self):
-        """One int32 per bucket code: ``left | width << shift``; a
-        zero-width sentinel entry at code == numofcodes catches
-        invalid queries.  Cached on the ESA."""
-        key = ("packed_bck", self.ppl, self.shift)
+    def _bucket_table(self):
+        """int32[2, numofcodes + 1]: bucket left borders (row 0) and
+        widths (row 1); a zero-width sentinel entry at code ==
+        numofcodes catches invalid queries.  Cached on the ESA."""
+        key = ("rank_bck", self.ppl)
         cache = self.esa._device_cache
         if key not in cache:
             raw = self.esa.aux_bck(self.ppl)
-            left = raw[0::2].astype(np.int64)
-            mid = raw[1::2].astype(np.int64)
-            packed = left | ((mid - left) << self.shift)
-            ncodes = packed.size + 1
-            rows = (ncodes + 127) // 128
-            buf = np.zeros(rows * 128, np.int64)
-            buf[: packed.size] = packed
-            cache[key] = jnp.asarray(
-                buf.astype(np.int32).reshape(rows, 128)
-            )
+            left = raw[0::2].astype(np.int32)
+            width = (raw[1::2].astype(np.int64) - left).astype(np.int32)
+            cache[key] = jnp.asarray(np.stack([
+                np.append(left, 0), np.append(width, 0)]))
         return cache[key]
 
     def pack(self, patterns: np.ndarray, plens: np.ndarray):
@@ -368,10 +358,12 @@ class RankLookupPlan:
         char-major: (coverage+1, Bp) — rows 0..coverage-1 hold pattern
         char j for every query (-1 pad, wildcards -> _WILDMARK), the
         last row the pattern lengths."""
-        from ..native.rankcount import TILE
-
         B, maxplen = patterns.shape
-        Bp = -(-B // TILE) * TILE
+        if plens.max(initial=0) > 127:
+            raise ValueError("fast path requires plen <= 127")
+        # batch padded to a multiple of _BATCH_QUANTUM (fewer compiled
+        # variants); padding rows have length 0 and hit the sentinel
+        Bp = -(-B // _BATCH_QUANTUM) * _BATCH_QUANTUM
         out = np.full((self.coverage + 1, Bp), -1, np.int8)
         w = min(maxplen, self.coverage)
         src = patterns[:, :w]
@@ -380,26 +372,15 @@ class RankLookupPlan:
         ).astype(np.int8)
         narrow = np.where(src >= self.sigma, np.int8(_WILDMARK), narrow)
         out[:w, :B] = narrow.T
-        out[self.coverage, :B] = np.minimum(plens, 127).astype(np.int8)
-        out[self.coverage, B:] = 0
-        if plens.max(initial=0) > 127:
-            raise ValueError("fast path requires plen <= 127")
-        return out.reshape(-1), Bp
+        out[self.coverage] = 0
+        out[self.coverage, :B] = plens.astype(np.int8)
+        return out.reshape(-1)
 
     def run(self, flat8):
         """Dispatch the device lookup; returns device (lo, hi)."""
         return _device_rank_lookup(
-            jnp.asarray(flat8),
-            self.bck,
-            self.t1,
-            self.t2,
-            self.ppl,
-            self.cpw,
-            self.sigma,
-            self.rowspan,
-            self.shift,
-            self.use_pallas,
-        )
+            jnp.asarray(flat8), self.bck, self.t1, self.t2,
+            self.ppl, self.cpw, self.sigma, self.W)
 
 
 def exact_interval_lookup(
@@ -407,9 +388,9 @@ def exact_interval_lookup(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Rank interval [lo, hi) of every whole pattern.
 
-    Fast path (rank-count kernel): deep bucket bracket + base-(σ+1)
-    two-word keys + the vectorized window count of
-    :mod:`vstree_tpu.native.rankcount` — O(1) probes per query.
+    Fast path: deep bucket bracket + base-(σ+1) two-word keys + one
+    fused window count (:func:`_device_rank_lookup`) — O(1) probes per
+    query.
     Falls back to the packed-key batched binary search for patterns
     longer than the two-word coverage, then to direct text comparison.
     """
@@ -419,9 +400,10 @@ def exact_interval_lookup(
     if B > 0 and esa.totallength > 0 and plens.max(initial=0) <= 127:
         plan = RankLookupPlan(esa, int(plens.min()), maxplen)
         if plan.ok:
-            flat8, _ = plan.pack(patterns, plens)
-            lo, hi = plan.run(flat8)
+            note("exact lookup", "device")
+            lo, hi = plan.run(plan.pack(patterns, plens))
             return np.asarray(lo)[:B], np.asarray(hi)[:B]
+    note("exact lookup", "binary search")
     n = esa.totallength
     pl = esa.prefixlength
     numofchars = esa.alpha.num_regular

@@ -8,7 +8,7 @@ extended left and right allowing up to k errors; the best extension
 per seed survives (cmpmatches: E-value, then identity, then length,
 ties replaced — include/extcmp.c).
 
-TPU-native design: the reference's per-seed char loops become
+Batched design: the reference's per-seed char loops become
 LEVEL-SYNCHRONOUS batched rounds over ALL seeds — each Hamming level
 h (or edit front p) issues one batched LCE sweep (ops/lce.py) for
 every seed simultaneously; the O(k^2) combination of left/right
@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.chardef import SEPARATOR, WILDCARD
+from ..core.route import use_device
 from ..ops.lce import lce_two_texts
 from ..stats.evalues import Evalues
 from .match import FLAGPALINDROMIC, FLAGQUERY, MatchTable
@@ -524,9 +525,7 @@ def edit_extend_seeds(
     slen = seeds.length1.astype(np.int64)
     n1, n2 = sq.n1, sq.n2
 
-    from .repeats import _use_device_engines
-
-    if _use_device_engines():
+    if use_device("seed extension"):
         # fronts + viability prefilter on device; only the surviving
         # seeds' front tensors are downloaded (engine/gextend_dev.py)
         from .gextend_dev import edit_fronts_viable
@@ -583,11 +582,12 @@ def edit_extend_self_device(esa, sq: Seqs, ev: Evalues,
     """Fused seeds -> extension for plain self comparison: maximal
     pairs are enumerated on device (engine/repeats_dev.py), fed to
     the device viability prefilter WITHOUT ever being downloaded, and
-    only the surviving few percent cross the link.  Returns None when
-    the device path is unavailable (caller runs the two-step path)."""
-    from .repeats import _pairs_to_matchtable, _use_device_engines
+    only the surviving few percent are copied to the host.  Returns
+    None on the host route or when the fused path does not apply
+    (caller runs the two-step path)."""
+    from .repeats import _pairs_to_matchtable
 
-    if not _use_device_engines():
+    if not use_device("seed extension"):
         return None
     from .repeats_dev import (
         _emission_order,

@@ -6,7 +6,7 @@ length the reference computes with its per-suffix ESA descents and
 amortized witness chains (src/kurtz/matchsub.c:353-539 speedup 2,
 src/Vmengine/fquery.c PROCESSSUFFIX).  The reference's sequential
 amortization (MS(p+1) >= MS(p) - 1 plus the sti1 isomorphism shortcut)
-is inherently serial; the TPU-native formulation instead computes ALL
+is inherently serial; the batched formulation instead computes ALL
 matching statistics at once from a generalized (merged) suffix
 ordering:
 

@@ -10,7 +10,7 @@ database region and the other in the indexed-query region
 (fmumself.c:48) and it is left-maximal: one start is 0, a bwt char is
 special, or the two bwt chars differ (fmumself.c:50-53).
 
-TPU-native design: the peak predicate, the db/query straddle test, and
+Array design: the peak predicate, the db/query straddle test, and
 left-maximality are all elementwise over rank arrays — the whole
 enumeration is a handful of vectorized comparisons, no traversal.
 """

@@ -10,7 +10,7 @@ Reference algorithms, all O(n) scans over the raw text:
   start position via the longest-match rescan
   (src/Vmengine/edistcompl.c:82-172, approxcompl.c:13-65).
 
-TPU-native design: no per-window char loops.
+Batched design: no per-window char loops.
 - exact/Hamming: ONE batched accumulation over pattern offsets —
   a [B, n] mismatch-count matrix built in maxplen fused
   shift-compare-add steps on the VPU.
@@ -158,10 +158,11 @@ def _ukkonen_cutoff_scan(text_rev, patrev, plens, M: int, k: int,
     new[i] = min(old[i]+1, old[i-1]+delta, new[i-1]+1) is vectorized
     with the prefix-min identity new[i] = min_{j<=i}(t[j]-j)+i.
 
-    ``resets``/``inregion`` ([n, B] bool, reversed-text order) replay
-    the per-region scans of splitesaapm: the column is re-initialized
-    at each region's right end and emissions outside regions are
-    masked.  None = one global scan (the -online behavior).
+    ``text_rev`` is one reversed text shared by every lane ([n]) or one
+    per lane ([n, B]).  ``resets``/``inregion`` ([n, B] bool,
+    reversed-text order) re-initialize the column at marked steps and
+    mask emissions outside marked steps.  None = one global scan (the
+    -online behavior).
 
     Returns [n_rev_steps, B] bool emission flags (True where the full
     column is <= threshold at this start position).
@@ -181,8 +182,9 @@ def _ukkonen_cutoff_scan(text_rev, patrev, plens, M: int, k: int,
         dcol, end = st                       # [B, M+2], [B]
         dcol = jnp.where(rst[:, None], jnp.minimum(idx, BIG), dcol)
         end = jnp.where(rst, jnp.int32(k + 1), end)
+        ch = jnp.reshape(ch, (-1,))          # [1] shared or [B]
         is_sep = ch == SEPARATOR
-        delta = (patrev != ch).astype(jnp.int32)
+        delta = (patrev != ch[:, None]).astype(jnp.int32)
         old = dcol
         diag = jnp.concatenate(
             [jnp.zeros((B, 1), jnp.int32), old[:, :-1]], axis=1)
@@ -208,7 +210,7 @@ def _ukkonen_cutoff_scan(text_rev, patrev, plens, M: int, k: int,
         full = nend == plen_col[:, 0] + 1
         # SEPARATOR: reset column (edistcompl.c:105-113)
         nend = jnp.where(is_sep, jnp.int32(k + 1), nend)
-        dcol3 = jnp.where(is_sep, jnp.minimum(idx, BIG), dcol3)
+        dcol3 = jnp.where(is_sep[:, None], jnp.minimum(idx, BIG), dcol3)
         emit = full & ~is_sep & inr
         return (dcol3, nend), emit
 

@@ -7,7 +7,7 @@ kurtz/findmaxpref.gen), then scans neighbor ranks while lcp >=
 searchlength carrying a running minimum (leftrightsubmatch,
 fquery.c:139-269), emitting left-maximal (dbpos, len) pairs.
 
-TPU-native reformulation — all query suffixes processed as one batch:
+Batched reformulation — all query suffixes processed as one batch:
 
 1. bucket brackets for every query position from a depth-d bucket
    table (d = min(searchlength, affordable depth); suffixes containing
@@ -41,6 +41,7 @@ from jax import lax
 
 from ..core.chardef import WILDCARD
 from ..core.multiseq import Multiseq
+from ..core.route import use_device
 from ..index.build import bucket_codes
 from ..index.esa import ESA
 from ..ops.lce import lce_two_texts
@@ -502,10 +503,8 @@ def find_query_matches(
             f"{esa.prefixlength}"
         )
 
-    import os as _os
-
-    if (mode == "mem" and qspeedup == 2
-            and not _os.environ.get("VSTREE_HOST_QUERY")
+    device = use_device("query matches")
+    if (mode == "mem" and qspeedup == 2 and device
             and esa.bcktab is not None and esa.stitab is not None
             and esa.lcptab is not None and nq == n
             and (qtext is esa.text
@@ -560,9 +559,7 @@ def find_query_matches(
 
     # --- MEM emission: scan range = lcp>=L run containing witness ---
     L = searchlength
-    import os as _os
-
-    if not _os.environ.get("VSTREE_HOST_QUERY"):
+    if device:
         from .querydev import mem_expand_device
 
         pos_d, len_d, g_d = mem_expand_device(

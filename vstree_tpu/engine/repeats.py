@@ -5,7 +5,7 @@ Kurtz-Ohlebusch bottom-up traversal with per-node position lists
 partitioned by left context character; cartesian products of
 left-diverse pairs.
 
-TPU-native reformulation (SURVEY.md §7): a maximal pair is fully
+Array reformulation (SURVEY.md §7): a maximal pair is fully
 characterized WITHOUT a traversal —
 
     (p, q) with p < q is a maximal repeat of length d  iff
@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.chardef import WILDCARD
+from ..core.route import use_device
 from ..index.esa import ESA
 from .match import MatchTable
 
@@ -230,7 +231,7 @@ def find_tandems(esa: ESA, searchlength: int) -> MatchTable:
 #
 # The reference streams pairs through the bottom-up traversal
 # (vdfstrav.c:248-420 + vmatfind.c processleafedge/processbranch).  Its
-# emission order decomposes into a per-pair sort key, so the TPU-native
+# emission order decomposes into a per-pair sort key, so the array
 # path can enumerate pairs with flat array ops and restore the exact
 # order with one lexsort:
 #
@@ -511,28 +512,15 @@ def maximal_pairs_ref_order(esa: ESA, searchlength: int):
     return out
 
 
-def _use_device_engines() -> bool:
-    """Route the flat-array engines to the accelerator: always on TPU;
-    opt-in elsewhere (tests exercise the device path on the CPU backend
-    via VSTREE_DEVICE_ENGINES=1)."""
-    import os
-
-    v = os.environ.get("VSTREE_DEVICE_ENGINES")
-    if v is not None:
-        return v not in ("", "0")
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
 def find_maximal_pairs_ref(esa: ESA, searchlength: int) -> MatchTable:
     """find_maximal_pairs with the reference's exact emission order
     (processexactselfmatch normalizes each pair to (min, max) —
     ACCEPTMATCH, fself.c:23-32).  Vectorized: pair enumeration by
     run/RMQ expansion + the computed emission key, no traversal.
-    On TPU the whole pipeline (expansion, RMQ, event times, emission
-    sort) runs as device programs (engine/repeats_dev.py)."""
-    if _use_device_engines():
+    On the device route (core/route.py) the whole pipeline (expansion,
+    RMQ, event times, emission sort) runs as device programs
+    (engine/repeats_dev.py)."""
+    if use_device("maximal repeats"):
         from .repeats_dev import maximal_pairs_device
 
         d, ri, rj = maximal_pairs_device(esa, searchlength,

@@ -1,26 +1,25 @@
-"""Device (TPU) path for maximal-repeat enumeration.
+"""Device path for maximal-repeat enumeration.
 
 The host path in :mod:`vstree_tpu.engine.repeats` already reformulated
 the reference's bottom-up traversal (src/Vmengine/vmatfind.c:240-541)
 into flat array ops: lcp>=L run detection, triangular pair expansion,
 RMQ depths, left-diversity on bwt, and the computed reference emission
 key restored by one lexsort.  This module runs those same flat
-programs on the TPU:
+programs on the device:
 
 - run detection + compaction: two small dispatches over the lcp array,
 - per chunk of expanded pairs (bounded T): ONE dispatch computing
   decode, diversity, RMQ depth, the event-time descent and the
   emission-key lexsort; the downloads are packed (rank_i, rank_j)
   words (5 bytes/pair when ranks fit 20 bits) plus int16 depths when
-  maxbranchdepth allows — the device link is the bottleneck,
+  maxbranchdepth allows, so fewer bytes cross to the host,
 - chunks are dispatched ahead of their downloads, so device compute
   overlaps the transfer and the host-side record assembly.
 
-Kernel geometry choices (measured on TPU v5e): run-id assignment by
-scatter+cummax instead of a batched binary search (16 gathers ->
-2 passes); event times by the aligned-window sparse-table descent
-(one gather per level) instead of a bracketed binary search (two RMQ
-gathers per step).
+Run ids are assigned by scatter+cummax (2 passes) instead of a batched
+binary search (16 gathers); event times by the aligned-window
+sparse-table descent (one gather per level) instead of a bracketed
+binary search (two RMQ gathers per step).
 
 The emission order semantics are documented at
 engine/repeats.py:229-249 (matching vmatfind.c cartproduct1/2 +

@@ -5,7 +5,7 @@ finds lcp-intervals whose children are all leaves ("alwaysontop") and
 whose regular bwt characters are pairwise distinct; every suffix pair
 of such an interval is a supermaximal repeat.
 
-TPU-native design: an alwaysontop interval of depth d spanning ranks
+Array design: an alwaysontop interval of depth d spanning ranks
 [l..r] is exactly a maximal run of equal values d in the lcp array
 (lcp[l+1..r] == d) that is a strict local maximum (lcp[l] < d,
 lcp[r+1] < d) — so the whole enumeration is a vectorized run-detection
@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.chardef import WILDCARD
+from ..core.route import note, use_device
 from ..index.esa import ESA
 from .match import MatchTable
 
@@ -103,8 +104,11 @@ def find_supermax(
     order; positions swapped so position1 < position2, fself.c:23-32).
 
     With ``mesh`` the interval detection runs as the rank-sharded scan
-    program (parallel/shardesa.py) — identical output."""
+    program (parallel/shardesa.py); on the device route (core/route.py)
+    as the same scan program on one device — identical output."""
     if mesh is not None:
+        note("supermax", "device")
+    if mesh is not None or use_device("supermax"):
         from ..parallel.shardesa import supermax_intervals_sharded
 
         left, right, depth = supermax_intervals_sharded(

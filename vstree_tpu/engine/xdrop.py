@@ -10,7 +10,7 @@ SEPARATOR trimming, self-overlap ``acceptmatch``, and the
 score -> distance conversion EVALSCORE2DISTANCE of
 src/include/match.h:76-77).
 
-TPU-native design: the reference extends one seed at a time with
+Batched design: the reference extends one seed at a time with
 char-by-char loops.  Here ALL seeds advance level-synchronously — one
 generation of the greedy algorithm is a batched [S, K]-diagonal array
 update whose "slide along matching characters" step is a single

@@ -1,4 +1,4 @@
-"""TPU-native enhanced-suffix-array construction.
+"""Enhanced-suffix-array construction on the device.
 
 The reference builds its ESA with a three-stage comparison sort
 (counting sort on prefixes + multikey quicksort + prefix-doubling for
@@ -11,7 +11,7 @@ docstring for the design and the exact sort-order contract mirroring
 remainsort.c:73-127/bese.c:26-52).  This module holds the build
 orchestration (the mkvtreeprocess analog, mkvprocess.c:875-1089): the
 derived tables (bwt, bck, sti1, skp), the ESA assembly, and the
-HBM-bounded out-of-core shard build on top of the mergeesa-analog
+device-memory-bounded out-of-core shard build on top of the mergeesa-analog
 merge.
 """
 
@@ -29,6 +29,7 @@ from jax import lax
 from ..core.alphabet import Alphabet
 from ..core.chardef import UNDEFBWTCHAR, WILDCARD
 from ..core.multiseq import Multiseq
+from ..core.route import note
 from .esa import ESA
 
 SIZEOFBCKENTRY = 16  # two Uint words per bucket; Uint = unsigned long,
@@ -441,7 +442,7 @@ def build_suf_out_of_core(
     arithmetic (index/merge.py — the reference's mergeesa seam,
     kurtz-basic/mergeesa.c:124).  The merged order is EXACTLY the
     monolithic index's (sequences are SEPARATOR-joined either way), so
-    an index far larger than HBM builds on one chip; the lcp pass runs
+    an index far larger than device memory builds on one device; the lcp pass runs
     as a host chunked window compare with O(chunk) memory.
 
     Returns (suftab[n+1], lcptab[n+1] or None).
@@ -492,6 +493,7 @@ def build_suf_out_of_core(
     assert suftab.size == n + 1 and suftab[-1] == n
     lcptab = None
     if want_lcp:
+        note("lcp", "host")
         lcptab = np.zeros(n + 1, np.int64)
         lcptab[1:n] = _lcp_pairs_host_chunked(
             gtext, suftab[:n - 1], suftab[1:n])
@@ -519,6 +521,7 @@ def build_esa(
         prefixlength = recommended_prefixlength(numofchars, max(n, 1))
 
     lcptab = None
+    note("suffix sort", "device")
     if mesh is not None and np.prod(list(mesh.shape.values())) > 1:
         suftab, stitab = suffix_sort(text, mesh=mesh)
     elif "lcp" in demand or "skp" in demand:

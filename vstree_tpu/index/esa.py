@@ -1,9 +1,9 @@
 """Enhanced suffix array (ESA) container.
 
-TPU-native analog of the reference ``Virtualtree`` struct
+Array analog of the reference ``Virtualtree`` struct
 (reference: src/include/virtualdef.h:186-219).  Differences by design:
 
-- tables are flat device arrays (int32 ranks, uint8 text) in HBM rather
+- tables are flat arrays (int32 ranks, uint8 text) in device memory rather
   than memory-mapped byte files; the 1-byte lcp + exception-pair
   encoding of the reference (virtualdef.h:121-136) exists only in the
   on-disk serialization (:mod:`vstree_tpu.index.io`), in memory lcp is
@@ -18,10 +18,14 @@ TPU-native analog of the reference ``Virtualtree`` struct
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+
+import jax
+import jax.numpy as jnp
 
 from ..core.alphabet import Alphabet
 from ..core.multiseq import Multiseq
@@ -46,7 +50,7 @@ class ESA:
     """Enhanced suffix array over an encoded Multiseq.
 
     All big tables are NumPy arrays host-side; device placement happens
-    in the engine layer (arrays are moved to HBM once per session and
+    in the engine layer (arrays are moved to the device once per session and
     reused across queries).
     """
 
@@ -153,67 +157,27 @@ class ESA:
         return e
 
     def rank_words(self, depth: int):
-        """Row-major packed comparison-word tables for the rank-count
-        kernel (:mod:`vstree_tpu.native.rankcount`): two device arrays
-        ``(ROWS, 128)`` int32 where flat index r holds the base-(σ+1)
-        Horner packing of chars ``text[suftab[r]+depth+j]`` for
-        j in [0, cpw) (word 1) and [cpw, 2*cpw) (word 2).  Digits:
-        regular char c -> c; from the first special char or
-        past-the-end onwards every digit saturates to σ (keeps words
-        monotone over ranks — specials order by position, which within
-        equal words is the rank order itself).  Padding rows beyond
-        rank n hold INT32_MAX.  Cached."""
-        import jax.numpy as jnp
-
+        """Packed comparison-word tables for the exact rank lookup
+        (engine/complete.py ``_device_rank_lookup``): two flat device
+        int32 arrays where index r holds the base-(σ+1) Horner packing
+        of chars ``text[suftab[r]+depth+j]`` for j in [0, cpw) (word 1)
+        and [cpw, 2*cpw) (word 2).  Digits: regular char c -> c; from
+        the first special char or past-the-end onwards every digit
+        saturates to σ (keeps words monotone over ranks — specials
+        order by position, which within equal words is the rank order
+        itself).  Built on the device; cached."""
         key = ("words", depth)
         if key not in self._rank_keys:
-            sigma = self.alpha.num_regular
-            base = sigma + 1
-            cpw = self.chars_per_word()
-            W = 2 * cpw
-            n = self.totallength
-            text = self.text
-            starts = self.suftab.astype(np.int64)
-            R = starts.size
-            rows = (R + 127) // 128 + 8
-            out1 = np.full(rows * 128, np.iinfo(np.int32).max, np.int32)
-            out2 = np.full(rows * 128, np.iinfo(np.int32).max, np.int32)
-            chunk = 1 << 21
-            for c0 in range(0, R, chunk):
-                st = starts[c0 : c0 + chunk, None]
-                idx = st + depth + np.arange(W)[None, :]
-                inb = idx < n
-                ch = text[np.minimum(idx, max(n - 1, 0))].astype(np.int64)
-                special = (~inb) | (ch >= sigma)
-                sat = np.maximum.accumulate(special, axis=1)
-                dig = np.where(sat, sigma, ch)
-                w1 = np.zeros(st.size, np.int64)
-                w2 = np.zeros(st.size, np.int64)
-                for j in range(cpw):
-                    w1 = w1 * base + dig[:, j]
-                    w2 = w2 * base + dig[:, cpw + j]
-                out1[c0 : c0 + st.shape[0]] = w1.astype(np.int32)
-                out2[c0 : c0 + st.shape[0]] = w2.astype(np.int32)
-            self._rank_keys[("host",) + key] = (out1, out2)
-            self._rank_keys[key] = (
-                jnp.asarray(out1.reshape(rows, 128)),
-                jnp.asarray(out2.reshape(rows, 128)),
-            )
-        return self._rank_keys[key]
-
-    def rank_words_host(self, depth: int):
-        """Host (flat numpy) view of :meth:`rank_words` for the
-        CPU-side batched binary searches."""
-        key = ("host", "words", depth)
-        if key not in self._rank_keys:
-            self.rank_words(depth)
+            self._rank_keys[key] = _rank_words(
+                self.device("text"), self.device("suftab"), depth,
+                self.alpha.num_regular, self.chars_per_word())
         return self._rank_keys[key]
 
     def aux_bck(self, depth: int) -> np.ndarray:
         """Bucket table at an arbitrary prefix depth (auxiliary, never
         serialized).  Deeper-than-prefixlength buckets shrink the
-        batched binary searches to O(1) probes — the TPU-native trade
-        of cheap HBM for expensive gathers."""
+        batched binary searches to O(1) probes: device memory traded
+        for fewer dependent gathers."""
         if depth not in self._aux_bck:
             from .build import bck_table
 
@@ -240,3 +204,21 @@ class ESA:
         if k not in self._device_cache:
             self._device_cache[k] = jnp.asarray(self.aux_bck(depth))
         return self._device_cache[k]
+
+
+@functools.partial(jax.jit, static_argnames=("depth", "sigma", "cpw"))
+def _rank_words(text, suftab, depth: int, sigma: int, cpw: int):
+    """Device body of :meth:`ESA.rank_words`."""
+    n = text.shape[0]
+    base = sigma + 1
+    sat = jnp.zeros(suftab.shape, bool)
+    words = []
+    for half in range(2):
+        w = jnp.zeros(suftab.shape, jnp.int32)
+        for j in range(half * cpw, (half + 1) * cpw):
+            idx = suftab + (depth + j)
+            ch = text[jnp.minimum(idx, n - 1)].astype(jnp.int32)
+            sat = sat | (idx >= n) | (ch >= sigma)
+            w = w * base + jnp.where(sat, sigma, ch)
+        words.append(w)
+    return words[0], words[1]

@@ -3,7 +3,7 @@
 bin/Checkmergeesa.sh): k separately built indexes merge into the index
 of their concatenation WITHOUT re-sorting.
 
-TPU-native reformulation: the merged rank of a suffix is its local
+Array reformulation: the merged rank of a suffix is its local
 rank plus, for every other index, the count of that index's suffixes
 ordering below it — a batched binary search per index pair (the
 reference's k-way trie walk becomes k*(k-1) vectorized searchsorted
@@ -13,7 +13,7 @@ regular, special vs special by GLOBAL position — since every special
 of an earlier part precedes every special of a later part, a tie
 resolves to the earlier part.
 
-This is the reference's DCN seam for text sharding (SURVEY §2.7.3):
+This is the reference's inter-host seam for text sharding (SURVEY §2.7.3):
 per-host partial indexes merge into the global order with
 communication proportional to the cross-rank counts.
 """

@@ -1,13 +1,13 @@
-"""Fast TPU suffix sorting and LCP (the hot core of the index build).
+"""Device suffix sorting and LCP (the hot core of the index build).
 
 The reference builds its suffix array with a counting sort on depth-pl
 prefixes (src/Mkvtree/ppsort.c:83) followed by per-bucket multikey
 quicksort (bese.c:855) and prefix-doubling for deep buckets
 (remainsort.c:39).  Round 3 of this framework ran generic prefix
-doubling from depth 1 as whole-array ``lax.sort`` rounds; honest device
+doubling from depth 1 as whole-array ``lax.sort`` rounds; device
 timing showed the LCP windowed-gather pass dominating (multi-GB [n, w]
-intermediates, the cause of the round-3 TPU fault) and every doubling
-round paying full-n cost.  This module is the redesign:
+intermediates) and every doubling round paying full-n cost.  This
+module is the redesign:
 
 1. **Seeded doubling** — the XLA analog of the reference's phase-1
    counting sort: initial ranks come from ONE ``lax.sort`` over packed
@@ -32,8 +32,8 @@ round paying full-n cost.  This module is the redesign:
    that finish drop out by the same compaction discipline, so deep-lcp
    stragglers cost only their own tail.
 
-No float math in any ordering decision; everything is int32 (the TPU's
-native integer width) and holds to n < 2^31 - 64.
+No float math in any ordering decision; ranks are int32, which holds
+to n < 2^31 - 64.
 """
 
 from __future__ import annotations
@@ -205,6 +205,22 @@ def _sa_from_rank(rank, n: int):
         jnp.arange(n, dtype=jnp.int32))
 
 
+# Share of the device memory limit the LCE snapshots may pin.
+SNAPSHOT_SHARE = 0.25
+# Snapshot budget on a backend that reports no memory limit (the CPU).
+HOST_SNAPSHOT_BUDGET = 2 << 30
+
+
+def snapshot_budget() -> int:
+    """Bytes the suffix-sort snapshots may pin: SNAPSHOT_SHARE of the
+    default device's ``bytes_limit``, or HOST_SNAPSHOT_BUDGET where the
+    backend reports no memory statistics."""
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"] * SNAPSHOT_SHARE)
+    return HOST_SNAPSHOT_BUDGET
+
+
 def device_suffix_sort(text_dev, n: int, sigma: int,
                        collect_snapshots: bool = False):
     """Suffix sort of the whole encoded text; returns sa (device int32
@@ -223,14 +239,14 @@ def device_suffix_sort(text_dev, n: int, sigma: int,
     sa0, rank, rank_by_slot, active = _initial_phase(
         text_dev, n, sigma, bits, D)
     snaps = []
-    # snapshot count is HBM-bounded: each snapshot pins a full [n]
-    # int32 array, so repetitive corpora (max-lcp ~ n) would otherwise
-    # pin ~log2(n/D) of them (>12 GB at 200 Mbp).  The budget keeps
-    # the SMALL-k certificates (binary representability of the
-    # descent needs every level below the largest kept); LCEs deeper
-    # than the kept ladder are finished exactly by the windowed
+    # snapshot count is bounded by device memory: each snapshot pins a
+    # full [n] int32 array, so repetitive corpora (max-lcp ~ n) would
+    # otherwise pin ~log2(n/D) of them (>12 GB at 200 Mbp).  The
+    # budget keeps the SMALL-k certificates (binary representability
+    # of the descent needs every level below the largest kept); LCEs
+    # deeper than the kept ladder are finished exactly by the windowed
     # ladder (lce_with_snapshots' completion pass).
-    snap_cap = max(4, int(2e9 // (4 * max(n, 1))))
+    snap_cap = max(4, snapshot_budget() // (4 * max(n, 1)))
     if collect_snapshots:
         snaps.append((D, rank + 0))
     cnt = int(jnp.sum(active.astype(jnp.int32)))
@@ -313,7 +329,7 @@ def lce_with_snapshots(snaps, P, a_dev, b_dev, n: int, sigma: int):
 
     The descent resolves any lce representable by the kept
     certificate ladder; pairs still word-equal at the descended depth
-    (possible when the snapshot list was HBM-capped) are finished
+    (possible when the snapshot list was capped) are finished
     EXACTLY by the windowed ladder, each paying only its own tail."""
     bits, D = lce_pack_params(sigma)
     ks = tuple(k for k, _ in snaps)
@@ -321,8 +337,9 @@ def lce_with_snapshots(snaps, P, a_dev, b_dev, n: int, sigma: int):
     a = a_dev.astype(jnp.int32)
     b = b_dev.astype(jnp.int32)
     l = _lce_descent(ranks, P, a, b, n, bits, D, ks)
-    # completion pass: a lane is unresolved iff the packed words at
-    # the descended depth still fully match
+    # completion pass: a lane is unresolved while it can still advance
+    # (its next char matches and is regular); the windowed ladder
+    # finishes those exactly
     kmask = (1 << (D * bits)) - 1
     ia = a + l
     ib = b + l
@@ -331,7 +348,9 @@ def lce_with_snapshots(snaps, P, a_dev, b_dev, n: int, sigma: int):
     offa = jnp.where(ia < n, lax.shift_right_logical(pa, D * bits), 0)
     offb = jnp.where(ib < n, lax.shift_right_logical(pb, D * bits), 0)
     x = (pa ^ pb) & kmask
-    unresolved = (x == 0) & (offa >= D) & (offb >= D)
+    msb = lax.population_count(_smear(x)) - 1
+    fd = jnp.where(x == 0, jnp.int32(D), D - 1 - msb // bits)
+    unresolved = jnp.minimum(fd, jnp.minimum(offa, offb)) > 0
     return device_lce_pairs(None, n, sigma, a, b, int(a.shape[0]),
                             tables=P, init_l=l, active0=unresolved)
 

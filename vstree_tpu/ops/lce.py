@@ -47,9 +47,7 @@ def lce_two_texts(
 ) -> np.ndarray:
     """lce[i] = longest common extension of ta[a[i]..] vs tb[b[i]..].
 
-    Host-windowed numpy compares: RAM gathers beat device random
-    gathers by orders of magnitude for this access pattern (TPU
-    gathers are row-oriented); the texts stay host-resident anyway.
+    Host-windowed numpy compares: the texts stay host-resident.
     ``ta_dev``/``tb_dev`` are accepted for API compatibility.
     """
     na, nb = int(ta_np.size), int(tb_np.size)
@@ -91,8 +89,9 @@ def lce_two_texts_device(
     ta_dev=None,
     tb_dev=None,
 ) -> np.ndarray:
-    """Device variant of lce_two_texts (windowed gathers in HBM) —
-    for HBM-resident texts at scales where host RAM is not an option.
+    """Device variant of lce_two_texts (windowed gathers in device
+    memory) — for device-resident texts at scales where host RAM is
+    not an option.
     """
     na, nb = int(ta_np.size), int(tb_np.size)
     m = int(a_np.size)

@@ -1,25 +1,26 @@
 """Multi-host (multi-process) entry points.
 
 The single-process mesh machinery (parallel/mesh.py + shardesa.py)
-covers one host's chips; real pods run one process per host and need
-``jax.distributed`` initialized BEFORE any device is touched.  This
-module is that entry point plus the global-mesh helper, mirroring how
-the reference's distribution seams (superbuckets vdfstrav.c:419-499,
-mergeesa.c text sharding) map onto ICI/DCN:
+covers one host's devices; a cluster runs one process per host and
+needs ``jax.distributed`` initialized BEFORE any device is touched.
+This module is that entry point plus the global-mesh helper, mirroring
+how the reference's distribution seams (superbuckets
+vdfstrav.c:419-499, mergeesa.c text sharding) map onto devices and
+hosts:
 
-- rank-range (superbucket) sharding of one index lives on the ICI
-  domain — shard_map collectives in shardesa.py;
+- rank-range (superbucket) sharding of one index stays among the
+  devices of one host — shard_map collectives in shardesa.py;
 - text sharding across hosts (one sub-database per host, merged by
-  index/merge.py rank arithmetic) is the DCN seam: each host builds
-  its shard locally, the cross-counts of merge_indexes are the only
-  inter-host traffic.
+  index/merge.py rank arithmetic) is the inter-host seam: each host
+  builds its shard locally, the cross-counts of merge_indexes are the
+  only inter-host traffic.
 
 Usage (one process per host)::
 
     from vstree_tpu.parallel.distributed import (
         init_multihost, global_mesh)
     init_multihost()                    # env-driven, or pass args
-    mesh = global_mesh()                # all chips of all hosts
+    mesh = global_mesh()                # all devices of all hosts
     esa = build_esa(ms, alpha, mesh=mesh)
 
 Driven by the standard JAX env variables

@@ -5,13 +5,15 @@ Reference seams (SURVEY.md §2.7): the C code's only parallel hooks are
 range (reference include/vdfstrav.c:419-499, ``-numproc``) and (2) the
 per-query independence of the matching loops (fquery.c:470-477).
 
-TPU-native design: a 2-D ``jax.sharding.Mesh`` with axes
+Design: a 2-D ``jax.sharding.Mesh`` shaped by the algorithm (every
+device reaches every other at the same rate, so no topology enters)
+with axes
 
 - ``sp`` (sequence/rank parallel): ``suftab`` is sharded into
   contiguous rank ranges — exactly the superbucket split, but by equal
   rank counts instead of bck codes.  Every shard answers "which of my
   ranks match?" locally; results merge with ``psum`` / ``pmin``
-  collectives over ICI.
+  collectives.
 - ``dp`` (data parallel): the query batch is sharded; no communication
   along this axis at all.
 
@@ -28,10 +30,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-try:  # jax >= 0.8 moved shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.chardef import WILDCARD
@@ -147,8 +146,8 @@ def sharded_exact_match(
 def doubling_round_sharded(mesh: Mesh, rank: jax.Array, k: int):
     """One prefix-doubling round of the suffix sort with the rank array
     laid out over the full mesh (build-time model parallelism: the
-    global ``lax.sort`` becomes an XLA distributed sort with ICI
-    all-to-alls).  Semantics identical to index.build._doubling_round.
+    global ``lax.sort`` becomes an XLA distributed sort).  Semantics
+    identical to index.build._doubling_round.
     """
     n = int(rank.size)
     sharding = NamedSharding(mesh, P(("dp", "sp")))

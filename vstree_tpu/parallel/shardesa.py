@@ -34,16 +34,12 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.chardef import WILDCARD
+from ..core.route import note
 from .mesh import _local_interval, make_mesh
-
-try:  # jax >= 0.8 moved shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def flat_spec(mesh: Mesh) -> NamedSharding:
@@ -384,6 +380,7 @@ def exact_interval_lookup_sharded(
     exact_interval_lookup (the occurrence set of a pattern is one
     contiguous rank interval, so psum of local counts + pmin of local
     first ranks restores it exactly)."""
+    note("exact lookup", "device")
     B, maxplen = patterns.shape
     n = int(esa.totallength)
     sp = mesh.shape["sp"]

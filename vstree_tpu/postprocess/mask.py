@@ -7,7 +7,7 @@ initpost.c:25-269).  Matches are marked in a position bit-table over
 the multiseq being masked; masking rewrites the FASTA with matched
 symbols replaced, nomatch emits the maximal unmarked regions.
 
-TPU-native framework note: this is cold host-side output plumbing —
+Design note: this is cold host-side output plumbing —
 interval marking is a vectorized difference-array pass, region
 enumeration a run-length scan; no device work.
 """

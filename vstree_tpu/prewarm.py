@@ -1,40 +1,32 @@
 """Compile-cache prewarming: ``python -m vstree_tpu.prewarm [--bp N]``.
 
-XLA compiles every (program, shape-class) pair it meets; a fresh
-machine pays that once — measured at ~5 minutes before the first
-16 Mbp index materializes (compare the reference's one-time
-``mkvtree`` build before ``vmatch`` can mmap, readvirt.c:776).  This
-module makes that cost an explicit install step instead of a
-first-run surprise: it routes a synthetic corpus of the requested
-size class through the suffix-sort/LCP core and the main match
-engines with the persistent compilation cache enabled, so every
-subsequent process on the machine starts warm.
+XLA compiles every (program, shape-class) pair it meets, and a fresh
+machine pays that once before the first large index materializes
+(compare the reference's one-time ``mkvtree`` build before ``vmatch``
+can mmap, readvirt.c:776).  This module makes that cost an explicit
+install step instead of a first-run surprise: it routes a synthetic
+corpus of the requested size class through the suffix-sort/LCP core
+and the main match engines with the persistent compilation cache
+enabled, so every later process of this checkout starts warm.
 
 The cache is keyed by shape class (index/sort.py pads round programs
 to 1/8-octave sizes), so prewarm at the corpus size you will build;
-several ``--bp`` values may be warmed in sequence.  The cache
-directory defaults to ``~/.cache/vstree_tpu/xla`` and is shared by
-the CLIs (cli/vmatch.py honours the same VSTREE_COMPILE_CACHE).
+several ``--bp`` values may be warmed in sequence.  The cache lives
+where ``core/envconf.py`` ``configure_compile_cache`` puts it, the same
+place the CLIs read.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 
-def prewarm(bp: int = 16_000_000, cache_dir: str | None = None,
-            verbose: bool = True) -> None:
-    if cache_dir is not None:
-        os.environ["VSTREE_COMPILE_CACHE"] = cache_dir
+def prewarm(bp: int = 16_000_000, verbose: bool = True) -> None:
     from .core.envconf import configure_compile_cache
 
-    # same per-(platform, XLA_FLAGS) segregated layout the CLIs read
-    configure_compile_cache()
+    cache_dir = configure_compile_cache()
     import jax
-
-    cache_dir = jax.config.jax_compilation_cache_dir
 
     import numpy as np
 
@@ -98,9 +90,8 @@ def main(argv=None):
                     "corpus size class.")
     ap.add_argument("--bp", type=int, default=16_000_000,
                     help="corpus size to warm (symbols; default 16M)")
-    ap.add_argument("--cache-dir", default=None)
     args = ap.parse_args(argv)
-    prewarm(args.bp, args.cache_dir)
+    prewarm(args.bp)
 
 
 if __name__ == "__main__":
